@@ -1,4 +1,4 @@
-"""alevin-fry-tpu: a TPU-native single-cell quantification engine.
+"""alevin-fry-tpu: a single-cell quantification engine in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 COMBINE-lab/alevin-fry (reference v0.16.2): RAD file processing,

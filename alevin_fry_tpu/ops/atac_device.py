@@ -4,7 +4,7 @@ The reference sorts ``HitInfo{chr, start, frag_len, barcode}`` rows per
 genomic-bin bucket (src/atac/sort.rs:45-131) and per cell with the cell
 as the outer key (src/atac/deduplicate.rs:175-226), then run-length
 counts duplicates.  The host path mirrors that with ``np.lexsort`` +
-RLE; this module is the TPU-native equivalent: the integer sort columns
+RLE; this module is the device equivalent: the integer sort columns
 pack MSB-first into one-to-three u64 key words (a column never splits
 across words, so multi-word lexicographic order equals column
 lexicographic order), one jitted program sorts the words with
@@ -16,7 +16,7 @@ ops/crlike_device.py).
 Dispatch: :func:`device_backend_enabled` follows the crlike pattern —
 ``AFT_ATAC_SORT_BACKEND`` = ``jax`` forces the device kernel, ``host``
 disables it, ``auto`` (default) uses it whenever jax's default backend
-is a real accelerator.
+is an accelerator.
 """
 
 from __future__ import annotations
@@ -96,11 +96,7 @@ def _unpack_cols(
 
 
 @functools.lru_cache(maxsize=None)
-def _sort_rle_fn(n_words: int, segscan: str | None = None):
-    # ``segscan`` keys the cache on the scan backend _seg_sum resolves
-    # at trace time (crlike_device._segscan_backend); callers pass it so
-    # an AFT_WTA_SEGSCAN flip retraces instead of silently reusing the
-    # previous backend's program
+def _sort_rle_fn(n_words: int):
     import jax
     import jax.numpy as jnp
 
@@ -231,18 +227,11 @@ def sort_rle_host(cols: Sequence[np.ndarray]):
 def sort_rle(cols: Sequence[np.ndarray]):
     """Backend dispatch: the device segmented sort+RLE when enabled and
     eligible, else the packed-word host sort.  Identical output either
-    way (== np.lexsort(cols[::-1]) + run-length counts).  A device
-    runtime failure mid-run falls back to the host sort and retires
-    the device for the process (ops/crlike.py::note_device_failure)."""
+    way (== np.lexsort(cols[::-1]) + run-length counts)."""
     if device_backend_enabled():
-        try:
-            got = sort_rle_device(cols)
-            if got is not None:
-                return got
-        except Exception as exc:  # device died mid-run
-            from .crlike import note_device_failure
-
-            note_device_failure(exc)
+        got = sort_rle_device(cols)
+        if got is not None:
+            return got
     return sort_rle_host(cols)
 
 
@@ -279,9 +268,7 @@ def sort_rle_device(
         b = np.full(pad_to, PAD, np.uint64)
         b[:n] = w
         bufs.append(b)
-    from .crlike_device import _segscan_backend
-
-    fn = _sort_rle_fn(len(words), _segscan_backend())
+    fn = _sort_rle_fn(len(words))
     with jax.enable_x64(True):
         out = fn(*[jnp.asarray(b) for b in bufs])
     pending = PendingSortRle(

@@ -20,8 +20,8 @@ maps N->A).  One-edit machinery:
   and return the unique neighbor when there is exactly one.
 
 All kernels are batched array programs (gather/sort/searchsorted); on
-TPU the inner membership tests run as XLA programs over the sharded
-query axis.
+an accelerator the rescue's membership tests run as one XLA program
+per query block (ops/rescue_device.py).
 """
 
 from __future__ import annotations
@@ -252,79 +252,34 @@ def find_neighbors_batch(
     return counts, rep
 
 
-def _accelerator_present() -> bool:
-    try:
-        import jax
-
-        return jax.default_backend() not in ("cpu",)
-    except Exception:
-        return False
-
-
 def find_neighbors(
     queries: np.ndarray, kept_sorted: np.ndarray, length: int,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Backend-dispatched Hamming<=1 rescue search — the production
+    """Backend-dispatched Hamming<=1 rescue search: the production
     entry point for the unfiltered-permit-list rescue
     (src/cellfilter.rs:190-233).
 
     ``AFT_RESCUE_BACKEND`` selects the engine:
 
-    * ``host``   — native C++/NumPy variant expansion + binary search;
-    * ``jax``    — the device searchsorted kernel (host-path
-      asymptotics as one XLA program; kept for A/B — its binary-
-      search gathers lose to the MXU kernel at every measured shape:
-      3.7 vs 0.31 s per 300k x 86k and 23.2 vs 4.3 s per 1.7M x 1.1M
-      warm on v5e, identical outputs);
-    * ``mxu``    — the MXU one-hot-contraction Pallas kernel: matches
-      = (Q x 4L)@(4L x K) bf16 dot, d<=1 <=> matches >= L-1, with the
-      count/min-index epilogue fused so the (Q,K) field never touches
-      HBM.  Measured 12.4 ms per 65k x 131k at 90% MXU (PROFILE_r05),
-      19.9x the retired brute-force VPU kernel; covers lengths 2..32;
-    * ``pallas`` — the brute-force XOR-popcount VPU kernel (kept for
-      A/B and lengths > 32);
-    * ``auto`` (default) — the MXU kernel on a real accelerator with
-      a large query batch and 2..32-base barcodes (the O(Q L log K)
-      searchsorted asymptotics never beat the MXU's constant factor
-      on-chip — the r5 measurements above); the host path otherwise.
+    * ``host`` - native C++/NumPy variant expansion + binary search;
+    * ``jax``  - the device searchsorted program
+      (ops/rescue_device.py), the same algorithm as one XLA program
+      per query block;
+    * ``auto`` (default) - the device program on an accelerator when
+      the batch holds at least 32k queries, the host path otherwise.
 
-    All backends implement the same contract and are identity-tested
-    against each other (tests/test_pallas_hamming.py)."""
+    Every backend implements the same contract and is tested against
+    the host path (tests/test_pallas_hamming.py)."""
     import os
 
+    from .crlike import accelerator_present
+
     mode = os.environ.get("AFT_RESCUE_BACKEND", "auto")
-    nq, nk = len(queries), len(kept_sorted)
-    if mode != "host" and nq and nk:
-        use_dev = mode in ("jax", "pallas", "mxu") or (
-            mode == "auto"
-            and 2 <= length <= 32
-            and nq >= (1 << 15)
-            and _accelerator_present()
-        )
-        if use_dev:
-            try:
-                from . import pallas_hamming as ph
+    if len(queries) and len(kept_sorted) and (
+        mode == "jax"
+        or (mode == "auto" and len(queries) >= (1 << 15) and accelerator_present())
+    ):
+        from .rescue_device import find_neighbors_searchsorted
 
-                if mode == "pallas" or length > 32:
-                    return ph.find_neighbors_pallas(queries, kept_sorted, length)
-                if mode == "jax" and length <= 16:
-                    return ph.find_neighbors_searchsorted(
-                        queries, kept_sorted, length
-                    )
-                return ph.find_neighbors_mxu(queries, kept_sorted, length)
-            except Exception:  # pragma: no cover - device fallback
-                import logging
-
-                logging.getLogger("aft.gpl").warning(
-                    "device rescue backend failed; falling back to host",
-                    exc_info=True,
-                )
-                # retire the device for every later auto dispatch too
-                import sys as _sys
-
-                exc = _sys.exc_info()[1]
-                if exc is not None:
-                    from .crlike import note_device_failure
-
-                    note_device_failure(exc)
+        return find_neighbors_searchsorted(queries, kept_sorted, length)
     return find_neighbors_batch(queries, kept_sorted, length)

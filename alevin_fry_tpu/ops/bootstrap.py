@@ -190,9 +190,11 @@ def run_bootstraps(
                 import jax.numpy as jnp
 
                 from .crlike import accelerator_present
-                from .em import _get_em_kernel_compact, compact_local_ids
+                from .em import (
+                    _get_em_kernel_compact, compact_local_ids, dense_em_cap_bytes,
+                )
 
-                # compact dictionaries + the dense MXU E/M steps (the
+                # compact dictionaries + the dense one-hot E/M steps (the
                 # same formulation as the main EM; bootstraps run
                 # R_p x the EM rounds, so this is the heaviest EM
                 # consumer).  Falls back to the full-space kernel when
@@ -210,12 +212,9 @@ def run_bootstraps(
                     dense_mode == "1" if dense_mode != "auto"
                     else accelerator_present()
                 )
-                dense_cap = int(
-                    os.environ.get("AFT_EM_DENSE_BYTES", 6 << 30)
-                )
                 if U + 1 < R:
                     dense_here = use_dense and (
-                        lab_pad.size * (U + 1) * 4 <= dense_cap
+                        lab_pad.size * (U + 1) * 4 <= dense_em_cap_bytes()
                     )
                     kern_c = _get_em_kernel_compact(
                         False, True, dense=dense_here, init_random=True

@@ -4,8 +4,8 @@ trivial, and USA-mode count extraction.
 The reference resolves each cell independently with sort-based streaming
 loops (pugutils.rs:504-850, quant.rs:453-641) — here every cell in the
 batch is resolved at once with one global lexicographic sort plus
-segmented reductions, which is the shape that maps onto the TPU sort /
-segmented-reduce units.
+segmented reductions, which is the shape that maps onto a device sort
+and segmented reductions.
 
 Semantics proven equivalent to the reference:
 
@@ -249,46 +249,12 @@ def _winners_prefer_ambig(tc, tu, tg, t_counts) -> UmiGroups:
 
 
 def accelerator_present() -> bool:
-    """True when jax's default backend is a real accelerator (the jax
-    import is deferred so host-only runs never pay for it).
+    """True when jax's default backend is an accelerator (the jax
+    import is deferred so host-only runs never pay for it).  Every
+    ``auto`` backend policy in the pipeline consults this one probe."""
+    import jax
 
-    After a device runtime failure (`note_device_failure`) this
-    reports False: every ``auto`` backend policy in the pipeline
-    consults it, so one flag retires the dead device everywhere — a
-    crashed co-tenant worker must not keep receiving dispatches from
-    later stages (observed: the parsimony CC kernel crashed a 50M run
-    AFTER the WTA/EM fallbacks had already engaged)."""
-    if _DEVICE_FAILED:
-        return False
-    try:
-        import jax
-
-        return jax.default_backend() not in ("cpu",)
-    except Exception:
-        return False
-
-
-_DEVICE_FAILED = False
-
-
-def note_device_failure(exc: BaseException) -> None:
-    """Mark the accelerator unusable for the rest of this process.
-
-    A co-tenant TPU worker restart (or a genuine kernel fault)
-    surfaces as a JaxRuntimeError on some later dispatch or fetch;
-    the pipeline must FINISH on the host fallback, not die mid-quant
-    (SURVEY.md §5 failure-detection; observed in the wild on this
-    image's shared chip during the r5 50M-read device run)."""
-    global _DEVICE_FAILED
-    if not _DEVICE_FAILED:
-        import logging
-
-        logging.getLogger("aft.quant").warning(
-            "device backend failed (%s: %s); falling back to the host "
-            "path for the remainder of this run",
-            type(exc).__name__, exc,
-        )
-    _DEVICE_FAILED = True
+    return jax.default_backend() != "cpu"
 
 
 def device_backend_enabled(n_pairs: int) -> bool:
@@ -296,40 +262,17 @@ def device_backend_enabled(n_pairs: int) -> bool:
 
     ``AFT_CRLIKE_BACKEND`` = ``jax`` forces it, ``host`` disables it;
     ``auto`` (default) resolves on the device whenever jax's default
-    backend is a real accelerator — the device path IS the pipeline
-    when a TPU is attached (quant.rs:643-1283 is the behavioral spec;
-    the host kernel remains the CPU-only fallback).  After a device
-    runtime failure (`note_device_failure`) every mode reports False
-    so in-flight pipelines complete on the host."""
+    backend is an accelerator (quant.rs:643-1283 is the behavioral
+    spec; the host kernel is the CPU path)."""
     import os
 
     del n_pairs
-    if _DEVICE_FAILED:
-        return False
     mode = os.environ.get("AFT_CRLIKE_BACKEND", "auto")
     if mode == "host":
         return False
     if mode == "jax":
         return True
     return accelerator_present()
-
-
-class GuardedPending:
-    """Wraps a device PendingWta with a host recompute fallback: if
-    the deferred fetch hits a device runtime failure, the block is
-    resolved on the host instead (bit-identical output) and the
-    device backend is disabled for the rest of the process."""
-
-    def __init__(self, pending, fallback):
-        self._pending = pending
-        self._fallback = fallback
-
-    def get(self):
-        try:
-            return self._pending.get()
-        except Exception as exc:  # device died mid-run
-            note_device_failure(exc)
-            return self._fallback()
 
 
 def wta_counts_native(
@@ -414,74 +357,39 @@ def wta_counts_device(
     # packed upload: when (umi, gene) fits 40 bits (12bp UMIs + any
     # realistic gene space) and cells arrive sorted, ship u32 low-keys
     # (+ a u8 overflow plane above 32 bits) + a tiny per-cell delta
-    # sideband and rebuild the u64 keys on device — 4-5 B/pair instead
-    # of 8 (AFT_WTA_PACKED_UPLOAD=0 restores whole-key upload; the
-    # no-compaction fast-link mode AFT_WTA_COMPACT=0 skips it too,
-    # since both packings only pay off on slow links)
-    def _host_fallback():
-        """Recompute this block on the host (bit-identical contract,
-        tests/test_parallel.py) after a device runtime failure."""
-        if not prefer_ambig:
-            rcv = wta_counts_native(
-                cell_of_read, umi, refs, aln_offsets, tid_to_gid, n_rows,
-                usa_offsets=(
-                    (n_rows // 3, 2 * (n_rows // 3)) if usa else None
-                ),
+    # sideband and rebuild the u64 keys on device - 4-5 B/pair instead
+    # of 8 (AFT_WTA_PACKED_UPLOAD=0 restores whole-key upload, as does
+    # the uncompacted output mode AFT_WTA_COMPACT=0)
+    if (
+        ubits + gbits <= 40
+        and cbits <= 32
+        and os.environ.get("AFT_WTA_PACKED_UPLOAD", "1") != "0"
+        and os.environ.get("AFT_WTA_COMPACT", "1") != "0"
+    ):
+        segs = _segments_of_sorted(c)
+        if segs is not None:
+            cell_ids = c[segs[:-1]].astype(np.int64)
+            low = (
+                u.astype(np.uint64) << np.uint64(gbits)
+            ) | g.astype(np.uint64)
+            lowkey = (low & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+            lowhi = (
+                (low >> np.uint64(32)).astype(np.uint8)
+                if ubits + gbits > 32 else None
             )
-            if rcv is not None:
-                return rcv
-        groups = resolve_crlike(
-            cell_of_read, umi, refs, aln_offsets, tid_to_gid,
-            prefer_ambig=prefer_ambig,
-        )
-        if usa:
-            slot, valid = usa_slots_for_groups(groups, n_rows)
-        else:
-            slot, valid = nonusa_unique_slots(groups)
-        return counts_from_slots(
-            groups.cell, slot, valid, max_cell + 1, n_rows
-        )
-
-    def _dispatch():
-        if (
-            ubits + gbits <= 40
-            and cbits <= 32
-            and os.environ.get("AFT_WTA_PACKED_UPLOAD", "1") != "0"
-            and os.environ.get("AFT_WTA_COMPACT", "1") != "0"
-        ):
-            segs = _segments_of_sorted(c)
-            if segs is not None:
-                cell_ids = c[segs[:-1]].astype(np.int64)
-                low = (
-                    u.astype(np.uint64) << np.uint64(gbits)
-                ) | g.astype(np.uint64)
-                lowkey = (low & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-                lowhi = (
-                    (low >> np.uint64(32)).astype(np.uint8)
-                    if ubits + gbits > 32 else None
-                )
-                return resolve_crlike_wta_device_packed(
-                    cell_ids, segs, lowkey, ubits, gbits, n_rows, usa=usa,
-                    prefer_ambig=prefer_ambig, async_=async_, lowhi=lowhi,
-                )
-        key = (
-            (c.astype(np.uint64) << np.uint64(ubits + gbits))
-            | (u.astype(np.uint64) << np.uint64(gbits))
-            | g.astype(np.uint64)
-        )
-        return resolve_crlike_wta_device(
-            key, ubits, gbits, n_rows, usa=usa, prefer_ambig=prefer_ambig,
-            async_=async_, n_cells=max_cell + 1,
-        )
-
-    try:
-        out = _dispatch()
-    except Exception as exc:  # dispatch/fetch hit a dead device
-        note_device_failure(exc)
-        return _host_fallback()
-    if async_ and out is not None:
-        return GuardedPending(out, _host_fallback)
-    return out
+            return resolve_crlike_wta_device_packed(
+                cell_ids, segs, lowkey, ubits, gbits, n_rows, usa=usa,
+                prefer_ambig=prefer_ambig, async_=async_, lowhi=lowhi,
+            )
+    key = (
+        (c.astype(np.uint64) << np.uint64(ubits + gbits))
+        | (u.astype(np.uint64) << np.uint64(gbits))
+        | g.astype(np.uint64)
+    )
+    return resolve_crlike_wta_device(
+        key, ubits, gbits, n_rows, usa=usa, prefer_ambig=prefer_ambig,
+        async_=async_, n_cells=max_cell + 1,
+    )
 
 
 # --- USA slotting (utils.rs:656-739 / quant.rs:516-589) ----------------------

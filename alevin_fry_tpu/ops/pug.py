@@ -471,7 +471,7 @@ def pug_cc_device_enabled() -> bool:
     """Whether PUG connected components run on the accelerator.
     ``AFT_PUG_CC_BACKEND`` = ``device``/``jax`` forces, ``host``
     disables; ``auto`` (default) engages when jax's default backend is
-    a real accelerator."""
+    an accelerator."""
     import os
 
     mode = os.environ.get("AFT_PUG_CC_BACKEND", "auto")
@@ -484,9 +484,9 @@ def pug_cc_device_enabled() -> bool:
     return accelerator_present()
 
 
-# (N, D) padding ladder for the batched device CC — bounds the number
-# of distinct XLA programs; cells beyond the largest rung fall back to
-# host label propagation
+# (N, D) padding ladder for the batched device CC - bounds the number
+# of distinct XLA programs; cells beyond the largest rung run host
+# label propagation
 _CC_N_LADDER = (16, 64, 256, 1024, 4096)
 _CC_D_LADDER = (4, 16, 64, 256)
 _CC_B_LADDER = (16, 128, 1024)
@@ -567,19 +567,7 @@ def _cc_labels_batched(
                 )
                 rows = np.repeat(np.arange(n), dg)
                 mat[b].reshape(-1)[rows * Dp + pos] = nb
-        try:
-            lab = connected_components_batched(mat, valid)
-        except Exception as exc:  # device died mid-run -> host CC
-            from .crlike import note_device_failure
-
-            note_device_failure(exc)
-            for c in cs:
-                s, e = node_off[c], node_off[c + 1]
-                labels_out[s:e] = _host_cc_labels(
-                    int(e - s), deg[s:e],
-                    nbrs_flat[adj_off[s] : adj_off[e]],
-                )
-            continue
+        lab = connected_components_batched(mat, valid)
         for b, c in enumerate(cs):
             s, e = node_off[c], node_off[c + 1]
             labels_out[s:e] = lab[b, : e - s]

@@ -3,7 +3,7 @@ cells.
 
 The reference finds weakly connected components of the per-cell UMI
 graph with a union-find (pugutils.rs:278-301) — inherently sequential.
-The TPU-native equivalent (SURVEY.md §7.1) is iterative **min-label
+The device equivalent (SURVEY.md §7.1) is iterative **min-label
 propagation with pointer jumping**: every node starts labeled with its
 own index; each round takes the min over its neighbors' labels and then
 hops to its current label's label (path halving), converging to the
@@ -15,7 +15,7 @@ sharding the batch axis over a mesh needs no cross-cell collectives.
 The production parsimony path uses the threaded native resolver (49x
 the per-cell Python path on host; docs/architecture.md) — this kernel
 is the device-resident building block for scaling PUG resolution onto
-chips, validated against the host union-find in tests and exercised by
+accelerators, validated against the host union-find in tests and exercised by
 the multi-chip dryrun.
 """
 
@@ -70,15 +70,14 @@ from functools import lru_cache
 
 @lru_cache(maxsize=32)
 def _dense_cc_run(B: int, N: int, fixed_rounds: int = 0):
-    """Build the dense MXU formulation: reachability by repeated matrix
+    """Build the dense formulation: reachability by repeated matrix
     squaring in a boolean semiring (R <- (R @ R > 0)), then per-node
     component label = min reachable node index.
 
-    The label-propagation formulation is gather-bound — measured at
-    ~0.8 GB/s on v5e (random (B, N*D) gathers serialize on the VPU; see
-    BASELINE.md utilization table) — while squaring runs B x N^3 MACs
-    per round on the MXU with ceil(log2(N)) rounds total.  0/1 matrices
-    in bf16 with f32 accumulation are exact (sums <= N <= 2^15)."""
+    The label-propagation formulation is bound by random (B, N*D)
+    gathers, while squaring runs B x N^3 MACs per round as matrix
+    products with ceil(log2(N)) rounds total.  0/1 matrices in bf16
+    with f32 accumulation are exact (sums <= N <= 2^15)."""
     import jax
     import jax.numpy as jnp
 
@@ -144,8 +143,8 @@ def connected_components_batched(
     B, N, D = nbrs.shape
     INF = np.int32(N)
 
-    # dense MXU path (default): N^2 adjacency + log2(N) squarings on
-    # the systolic array, sub-batched so the f32 matmul intermediate
+    # dense path (default): N^2 adjacency + log2(N) squarings as
+    # matrix products, sub-batched so the f32 matmul intermediate
     # stays under ~512 MB; the gather formulation remains for huge N
     # and as the AFT_PUG_CC_DENSE=0 escape hatch
     if dense is None:

@@ -1,6 +1,6 @@
 """Multi-host (DCN) scaffolding.
 
-The reference is strictly single-process (SURVEY §2.3); the TPU-native
+The reference is strictly single-process (SURVEY §2.3); the
 scale-out story prescribed there is ``jax.distributed`` + collectives:
 replicate the tg-map and permit list, shard the RAD chunk stream by
 host, keep per-cell work chip-local, and merge per-host partial count
@@ -9,9 +9,8 @@ all-gather (and the gpl histogram psum, which already rides the mesh).
 
 ``initialize()`` wires ``jax.distributed`` from either explicit
 arguments or the standard env (``JAX_COORDINATOR_ADDRESS`` /
-``AFT_COORDINATOR`` + ``AFT_NUM_PROCESSES`` + ``AFT_PROCESS_ID``); on
-TPU pods with no env it falls back to jax's automatic cluster
-detection.  Single-process runs never touch jax.
+``AFT_COORDINATOR`` + ``AFT_NUM_PROCESSES`` + ``AFT_PROCESS_ID``).
+Single-process runs never touch jax.
 """
 
 from __future__ import annotations

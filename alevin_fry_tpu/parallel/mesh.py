@@ -1,9 +1,9 @@
 """Device-mesh sharding for the quantification engine.
 
-The reference is single-process (SURVEY.md §2.3); the TPU-native design
+The reference is single-process (SURVEY.md §2.3); the device design
 shards the *cell axis* (pure data parallelism — per-cell UMI resolution
 and EM are independent) and the *barcode/read axis* for the histogram
-and collation phases, with psum/all-gather merges over ICI:
+and collation phases, with psum/all-gather merges between devices:
 
 * permit-list histogram: reads sharded across chips; per-chip partial
   histograms over the (replicated, sorted) whitelist merge with a
@@ -34,9 +34,8 @@ def mesh_from_env() -> Mesh | None:
     """Build the cells-axis mesh for the batched EM.  ``AFT_EM_MESH``
     overrides (``0``/``none`` → no mesh; ``auto`` → all devices; an
     integer → that many).  Unset = ``auto`` when jax's default backend
-    is a real accelerator (multi-chip sharding is the default on TPU
-    pods; a single attached chip yields no mesh and plain jit), no
-    mesh on CPU-only hosts.
+    is an accelerator (a multi-card host shards by default; a single
+    card yields no mesh and plain jit), no mesh on CPU-only hosts.
 
     The EM batch sizes are quantized to {64, 512, 4096}
     (ops/em.py::em_cells_batched), so the device count is clamped to
@@ -65,7 +64,7 @@ def sharded_histogram(mesh: Mesh, bcs: jnp.ndarray, wl_sorted: jnp.ndarray):
     """Barcode histogram against a replicated sorted whitelist.
 
     ``bcs`` is sharded over the cells axis; the whitelist is replicated;
-    per-shard partial counts are merged with a psum over ICI.
+    per-shard partial counts are merged with a psum.
     Returns (counts_per_wl_entry, num_unmatched).
 
     Runs under x64 so packed barcodes keep their full u64 width
@@ -114,7 +113,7 @@ def sharded_bin_histogram(mesh: Mesh, idx: np.ndarray, n_bins: int):
     """Genomic-bin scatter-add histogram over the mesh (the ATAC gpl
     bin pass, atac/cellfilter.rs:67-102): bin indices shard over the
     data axis, each shard scatter-adds into a replicated bin array, and
-    a psum over ICI merges the partials.  Returns int64 counts[n_bins].
+    a psum merges the partials.  Returns int64 counts[n_bins].
     """
     axis = mesh.axis_names[0]
 
@@ -186,8 +185,8 @@ def sharded_collate_shuffle(
     """All-to-all collation shuffle over the device mesh.
 
     The reference's collate stage is an out-of-core scatter/gather by
-    corrected barcode through temp files (collate.rs:584-905); on a TPU
-    slice the same regrouping is a fixed-capacity all-to-all over ICI
+    corrected barcode through temp files (collate.rs:584-905); on a
+    device mesh the same regrouping is a fixed-capacity all-to-all
     (SURVEY.md §5): reads arrive sharded in mapper order, each carrying
     its corrected cell rank, and must end up grouped by cell on the
     shard that owns that cell.

@@ -1,7 +1,7 @@
 """collate — group reads by corrected cell barcode.
 
 The reference implements this as an out-of-core scatter/gather over
-temp-file buckets (src/collate.rs:396-939).  TPU-first, collation is a
+temp-file buckets (src/collate.rs:396-939).  Here collation is a
 single device sort: ingest the RAD file to columnar arrays, correct
 barcodes through the permit map (vectorized binary search), filter
 alignments to the expected orientation, and stable-sort reads by cell
@@ -88,7 +88,7 @@ def collate_device_enabled() -> bool:
     """Whether the device all-to-all shuffle computes the collation
     order.  ``AFT_COLLATE_BACKEND`` = ``jax`` forces it, ``host``
     disables it; ``auto`` (default) uses the device whenever jax's
-    default backend is a real accelerator — same policy as the quant
+    default backend is an accelerator — same policy as the quant
     resolver (ops/crlike.py::device_backend_enabled)."""
     import os
 
@@ -105,46 +105,36 @@ def collate_device_enabled() -> bool:
 def collation_order_device(ranks: np.ndarray, n_cells: int):
     """Stable grouping order of reads by cell rank via the mesh
     all-to-all shuffle (parallel/mesh.py::sharded_collate_shuffle — the
-    TPU analog of the reference's temp-bucket scatter/gather,
-    collate.rs:584-905).  Returns (order, per_cell_counts) or None when
-    the device path is unavailable; ``order`` equals
+    device analog of the reference's temp-bucket scatter/gather,
+    collate.rs:584-905).  Returns (order, per_cell_counts), or None
+    for inputs the int32 device layout cannot hold; ``order`` equals
     ``np.argsort(ranks, kind="stable")``."""
     n = len(ranks)
     if n == 0 or n_cells == 0 or n >= (1 << 31) - 1:
         return None
-    try:
-        from ..parallel.mesh import make_mesh, sharded_collate_shuffle
+    from ..parallel.mesh import make_mesh, sharded_collate_shuffle
 
-        mesh = make_mesh()
-    except Exception:  # no jax / no devices
-        return None
+    mesh = make_mesh()
     S = int(mesh.devices.size)
     n_pad = -(-n // S) * S
     r = np.full(n_pad, n_cells, np.int64)
     r[:n] = ranks
     payload = np.arange(n_pad, dtype=np.int64)
-    # exchange-bin capacity = largest (source shard, owner shard) bin;
-    # the kernel reports drops if this is ever violated (the analog of
-    # the reference's per-bucket record-count asserts, collate.rs:784-803)
+    # exchange-bin capacity = largest (source shard, owner shard) bin,
+    # so no read can overflow its bin (the analog of the reference's
+    # per-bucket record-count asserts, collate.rs:784-803)
     cps = -(-n_cells // S)
     owner = np.minimum(r // cps, S - 1)
     src = np.repeat(np.arange(S, dtype=np.int64), n_pad // S)
     cap = max(1, int(np.bincount(src * S + owner, minlength=S * S).max()))
-    try:
-        r_out, p_out, dropped = sharded_collate_shuffle(
-            mesh, r, payload, n_cells, cap
-        )
-    except Exception as exc:  # device died mid-run -> host sort
-        from ..ops.crlike import note_device_failure
-
-        note_device_failure(exc)
-        return None
+    r_out, p_out, dropped = sharded_collate_shuffle(
+        mesh, r, payload, n_cells, cap
+    )
     if dropped:
-        log.warning(
-            "device collation shuffle dropped %d reads; falling back to "
-            "the host sort", dropped,
+        raise AssertionError(
+            f"device collation shuffle dropped {dropped} reads although "
+            f"every bin fits the capacity {cap}"
         )
-        return None
     fr = r_out.reshape(-1)
     order = p_out.reshape(-1)[fr != n_cells].astype(np.int64)
     per_cell = np.bincount(
@@ -635,8 +625,8 @@ def _collate_in_memory_native(
         else np.zeros(n, np.uint64)
     )
 
-    # group kept reads by cell rank: device all-to-all shuffle when a
-    # TPU is attached, stable O(n) native counting sort otherwise
+    # group kept reads by cell rank: device all-to-all shuffle when an
+    # accelerator is present, stable O(n) native counting sort otherwise
     dev = (
         collation_order_device(rank[kept_idx].astype(np.int64), len(cell_bcs))
         if collate_device_enabled() else None

@@ -126,10 +126,10 @@ def _histogram(bcs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 def gpl_mesh_from_env():
     """Device mesh for the barcode histogram.  ``AFT_GPL_MESH``
     overrides (``0``/``none`` → host; ``auto`` → all devices; integer →
-    that many); unset = ``auto`` when jax's default backend is a real
-    accelerator.  Needs ≥ 2 devices — with one chip the host histogram
+    that many); unset = ``auto`` when jax's default backend is an
+    accelerator.  Needs ≥ 2 devices — with one card the host histogram
     already saturates the decode stream, so the device path is the
-    multi-chip (pod) regime (cellfilter.rs:1762-1888 is the behavioral
+    multi-card regime (cellfilter.rs:1762-1888 is the behavioral
     spec: DashMap histogram + thread-local unmatched lists → psum'd
     per-shard counts + host-side unmatched tail)."""
     import os
@@ -316,7 +316,6 @@ def generate_permit_list(opts: GenPermitListOpts) -> int:
         gpl_mesh = None
         wl_dev = None
         wl_dev_counts = None
-        wl_dev_active = False
         if opts.fmeth.kind == "unfiltered" and world == 1:
             # (multi-host runs merge host-local histograms over the DCN
             # instead — per-host read streams differ, so a global-mesh
@@ -326,7 +325,6 @@ def generate_permit_list(opts: GenPermitListOpts) -> int:
                 wl_pre, _wl_len = read_barcode_file(opts.fmeth.path)
                 wl_dev = np.sort(np.unique(wl_pre))
                 wl_dev_counts = np.zeros(len(wl_dev), np.int64)
-                wl_dev_active = True
 
         from .progress import stage_timer
 
@@ -345,25 +343,14 @@ def generate_permit_list(opts: GenPermitListOpts) -> int:
                 if nc:
                     max_ambig = max(max_ambig, int(nal[compat].max()))
                 kept = bcs[compat] if nc < len(bcs) else bcs
-                if wl_dev_active and len(kept):
+                if wl_dev is not None and len(kept):
                     from ..parallel.mesh import sharded_histogram
 
-                    try:
-                        cnt, _unm, hit = sharded_histogram(
-                            gpl_mesh, kept, wl_dev
-                        )
-                        wl_dev_counts += np.asarray(cnt, np.int64)
-                        kept = kept[~hit]
-                        if len(kept) == 0:
-                            continue
-                    except Exception as exc:  # device died mid-run
-                        from ..ops.crlike import note_device_failure
-
-                        note_device_failure(exc)
-                        # counts tallied on device so far stay valid
-                        # (they merge below); this block and the rest
-                        # histogram fully on the host
-                        wl_dev_active = False
+                    cnt, _unm, hit = sharded_histogram(gpl_mesh, kept, wl_dev)
+                    wl_dev_counts += np.asarray(cnt, np.int64)
+                    kept = kept[~hit]
+                    if len(kept) == 0:
+                        continue
                 b_bc, b_ct = _histogram(kept)
                 h_bc, h_ct = _merge_histograms(h_bc, h_ct, b_bc, b_ct)
 

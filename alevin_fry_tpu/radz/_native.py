@@ -3,55 +3,85 @@
 The only inherently sequential part of RAD decoding is walking the
 variable-length record boundaries (each record's size depends on its
 ``num_aln`` field).  That walk runs here in C++; everything else is
-vectorized NumPy / JAX.  Falls back gracefully when the shared library
-has not been built (build with ``make -C csrc``).
+vectorized NumPy / JAX.  The shared library is built from
+``csrc/radc.cpp`` at first use (``ensure_built``); when the build
+fails, the pure-NumPy paths run and the compiler's error is logged.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import logging
 import os
 from pathlib import Path
 
 import numpy as np
 
+log = logging.getLogger("aft.native")
+
 _LIB = None
 _TRIED = False
 
 
-def _maybe_rebuild(so: Path) -> None:
-    """Rebuild libradc.so from source when radc.cpp is newer (stale
-    committed binary = supply-chain/drift risk, ADVICE r4).  Quiet
-    no-op when the toolchain is absent or AFT_RADC_NO_BUILD=1."""
+def _stamped_sha256(info: Path) -> str | None:
+    """The ``source_sha256`` the Makefile stamped beside the binary."""
+    if not info.exists():
+        return None
+    for line in info.read_text().splitlines():
+        if line.startswith("source_sha256:"):
+            return line.split(":", 1)[1].strip()
+    return None
+
+
+def ensure_built(csrc: Path) -> Path | None:
+    """Build ``csrc/libradc.so`` from ``radc.cpp`` unless the binary
+    there is stamped with the source's sha256.  Concurrent processes
+    serialise on a lock file, so one builds and the rest load its
+    result.  A failed build is logged with the compiler's output and
+    returns None (the pure-NumPy paths then run).  ``AFT_RADC_NO_BUILD``
+    skips the build."""
+    so = csrc / "libradc.so"
+    info = csrc / "libradc.buildinfo"
+    src = csrc / "radc.cpp"
+    if not src.exists():
+        return so if so.exists() else None
+    want = hashlib.sha256(src.read_bytes()).hexdigest()
+    if so.exists() and _stamped_sha256(info) == want:
+        return so
     if os.environ.get("AFT_RADC_NO_BUILD"):
-        return
-    src = so.parent / "radc.cpp"
-    mk = so.parent / "Makefile"
-    if not (src.exists() and mk.exists()):
-        return
-    if so.exists() and so.stat().st_mtime >= src.stat().st_mtime:
-        return
+        return so if so.exists() else None
+    import fcntl
     import subprocess
 
-    try:
-        subprocess.run(
-            ["make", "-C", str(so.parent)],
-            check=True, capture_output=True, timeout=300,
-        )
-    except Exception:
-        pass  # fall back to whatever binary (or Python path) exists
+    with open(csrc / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if so.exists() and _stamped_sha256(info) == want:
+            return so
+        try:
+            proc = subprocess.run(
+                ["make", "-B", "-C", str(csrc)],
+                capture_output=True, text=True, timeout=900,
+            )
+        except (OSError, subprocess.TimeoutExpired) as exc:
+            log.error("cannot build the native codec in %s: %s", csrc, exc)
+            return None
+        if proc.returncode != 0:
+            log.error(
+                "building the native codec failed (make -C %s, exit %d):\n%s",
+                csrc, proc.returncode, (proc.stdout + proc.stderr)[-8000:],
+            )
+            return None
+    return so
 
 
 def _find_lib():
-    here = Path(__file__).resolve().parent.parent.parent
-    _maybe_rebuild(here / "csrc" / "libradc.so")
-    for cand in (here / "csrc" / "libradc.so", here / "libradc.so"):
-        if cand.exists():
-            return str(cand)
     env = os.environ.get("AFT_RADC_LIB")
     if env and os.path.exists(env):
         return env
-    return None
+    here = Path(__file__).resolve().parent.parent.parent
+    so = ensure_built(here / "csrc")
+    return str(so) if so is not None else None
 
 
 def _load():

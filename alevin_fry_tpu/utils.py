@@ -20,6 +20,26 @@ import numpy as np
 from .ops.barcodes import pack_seqs
 
 
+# --- compile cache ----------------------------------------------------------
+
+def configure_compile_cache() -> Path | None:
+    """Point JAX's persistent compilation cache at a fixed directory.
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and
+    nothing is set here (returns None).  Otherwise the cache lives at
+    ``<checkout>/.jax_cache``: a fixed path, because the path is part
+    of the cache key.  Returns the directory it configured."""
+    import os
+
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    import jax
+
+    cache = Path(__file__).resolve().parent.parent / ".jax_cache"
+    jax.config.update("jax_compilation_cache_dir", str(cache))
+    return cache
+
+
 # --- strands ----------------------------------------------------------------
 # bio_types::strand::Strand symbols: Forward "+", Reverse "-", Unknown "."
 STRAND_FW = "+"

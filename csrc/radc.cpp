@@ -454,19 +454,26 @@ int64_t radc_extract_fields2(const uint8_t* buf, int64_t buf_len,
 void radc_find_neighbors(const uint64_t* queries, int64_t n_q,
                          const uint64_t* kept, int64_t n_k, int64_t bc_len,
                          int64_t* counts_out, uint64_t* rep_out) {
-  // membership hash set over the kept barcodes (sentinel = all-ones,
-  // which cannot be a 2-bit packed barcode of <= 31 bases)
+  // membership hash set over the kept barcodes (sentinel = all-ones;
+  // a 32-base all-T barcode IS all-ones, so its membership is kept in
+  // a flag beside the table)
   uint64_t cap = 16;
   while (cap < static_cast<uint64_t>(n_k) * 2) cap <<= 1;
   const uint64_t mask = cap - 1;
   const uint64_t kEmpty = ~0ull;
   std::vector<uint64_t> table(cap, kEmpty);
+  bool has_all_ones = false;
   for (int64_t i = 0; i < n_k; ++i) {
+    if (kept[i] == kEmpty) {
+      has_all_ones = true;
+      continue;
+    }
     uint64_t h = mix64(kept[i]) & mask;
     while (table[h] != kEmpty && table[h] != kept[i]) h = (h + 1) & mask;
     table[h] = kept[i];
   }
-  auto lookup = [&table, mask, kEmpty](uint64_t v) -> bool {
+  auto lookup = [&table, mask, kEmpty, has_all_ones](uint64_t v) -> bool {
+    if (v == kEmpty) return has_all_ones;
     uint64_t h = mix64(v) & mask;
     uint64_t t;
     while ((t = table[h]) != kEmpty && t != v) h = (h + 1) & mask;

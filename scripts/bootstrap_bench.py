@@ -1,7 +1,7 @@
 #!/usr/bin/env python
-"""Bootstrap-at-scale benchmark (VERDICT r3 #8): >=20k cells x 16
+"""Bootstrap-at-scale benchmark: >=20k cells x 16
 replicates through the device bootstrap path (compact dictionaries +
-dense-MXU EM rounds, ops/bootstrap.py::run_bootstraps), with a
+dense one-hot EM rounds, ops/bootstrap.py::run_bootstraps), with a
 100-cell slice validated against the NumPy oracle.
 
 The per-cell multinomial resamples are identical host RNG streams on
@@ -120,7 +120,7 @@ def main():
 
     res = {
         "kernel": f"device bootstraps ({args.cells} cells x {Rp} reps, "
-                  f"R={R}, compact+dense-MXU EM)",
+                  f"R={R}, compact+dense EM)",
         "wall_s": round(t_dev, 2),
         "cell_reps_per_s": round(args.cells * Rp / t_dev),
         "validated_cells_vs_numpy": n_val,

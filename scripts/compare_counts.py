@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Compare two alevin-fry(-tpu) quantification directories.
+"""Compare two alevin-fry quantification directories.
 
 Standalone re-implementation of the reference's numerical comparison
 harness (scripts/testing/compare_counts.py), which defines output

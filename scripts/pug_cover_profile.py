@@ -1,9 +1,8 @@
 #!/usr/bin/env python
 """Parsimony wall-clock breakdown: graph build vs connected components
-vs greedy arborescence cover (VERDICT r3 #7).
+vs greedy arborescence cover.
 
-The PUG CC now runs as a dense-MXU squaring kernel (0.67 ms/round on
-v5e), but the greedy cover (pugutils.rs:308-391 semantics) stays in
+The PUG CC runs as a batched device kernel, but the greedy cover (pugutils.rs:308-391 semantics) stays in
 host C++ (csrc/radc.cpp::radc_pug_cover).  This script measures what
 fraction of parsimony resolution the cover actually is at bench scale
 (2M reads / 4k cells, the bench.py distribution), phase by phase:
@@ -14,7 +13,7 @@ fraction of parsimony resolution the cover actually is at bench scale
     cover  — radc_pug_cover (greedy monochromatic arborescence)
 
 plus the fused single-call native path (radc_pug_resolve) as the
-baseline total.  Decision rule from the VERDICT: if cover dominates,
+baseline total.  Decision rule: if cover dominates,
 prototype the masked batched-BFS device cover (SURVEY §7.2(6)); if it
 doesn't, record that and stop.
 

@@ -209,7 +209,9 @@ def make_hard_dataset(
     has2 = lab_counts >= 2
     labels[offs[:-1][has2] + 1] = sec[has2].astype(np.uint32)
     # third label (family class): next family gene
-    g3 = fam_base + (mol_gene - fam_base + 2) % fam
+    # (modulo n_genes: the last family is partial when fam does not
+    # divide n_genes)
+    g3 = (fam_base + (mol_gene - fam_base + 2) % fam) % n_genes
     has3 = lab_counts >= 3
     labels[offs[:-1][has3] + 2] = txp_of(g3, mol_spliced, k0)[
         has3

@@ -292,7 +292,7 @@ def test_dense_mxu_kernel_matches_gather(usa, dmode, monkeypatch):
 
 def test_bootstrap_jax_compact_matches_numpy_stats(monkeypatch):
     """The device bootstrap path (forced AFT_BOOT_BACKEND=jax; compact
-    dictionaries + dense MXU rounds) must produce replicate means close
+    dictionaries + dense one-hot rounds) must produce replicate means close
     to the NumPy backend's: the multinomial resamples are identical
     per-cell host RNG streams, only the EM init generator differs, and
     the EM converges to the same optimum."""

@@ -85,6 +85,36 @@ def test_em_cells_batched_mesh_matches_host(mesh):
         np.testing.assert_allclose(bv, sv, rtol=1e-6)
 
 
+def test_sharded_em_memory_capped_batch_splits_evenly():
+    """A memory-capped batch size (here 70 cells) is rounded down to a
+    multiple of the mesh size before the batch is sharded."""
+    from alevin_fry_tpu.ops.em import em_cells_batched
+    from alevin_fry_tpu.parallel.mesh import make_mesh
+
+    rng = np.random.RandomState(9)
+    R = 24
+    ceo, lo, labels, counts = [0], [0], [], []
+    for _ in range(100):
+        ne = rng.randint(2, 7)
+        for _ in range(ne):
+            ll = rng.randint(1, 4)
+            labels.extend(rng.choice(R, size=ll, replace=False).tolist())
+            lo.append(len(labels))
+            counts.append(rng.randint(1, 15))
+        ceo.append(ceo[-1] + ne)
+    args = (np.asarray(ceo, np.int64), np.asarray(lo, np.int64),
+            np.asarray(labels, np.uint32), np.asarray(counts, np.uint32),
+            R, None, False, True)
+    # per-cell budget (R+1)*3 + 64*4*2 = 587 elements -> 70 cells
+    cap = 587 * 70
+    base = em_cells_batched(*args, use_jax=True)
+    sharded = em_cells_batched(*args, use_jax=True, max_batch_elems=cap,
+                               mesh=make_mesh(4))
+    for (bi, bv), (si, sv) in zip(base, sharded):
+        np.testing.assert_array_equal(bi, si)
+        np.testing.assert_allclose(bv, sv, rtol=1e-6)
+
+
 def test_sharded_em_round_matches_numpy(mesh):
     R = 32
     B = 2 * len(jax.devices())
@@ -635,7 +665,7 @@ def test_gpl_device_histogram_matches_host(tmp_path, monkeypatch):
 
 
 def test_dense_cc_matches_gather_formulation():
-    """The MXU reachability-squaring CC (ops/pug_device._dense_cc_run)
+    """The dense reachability-squaring CC (ops/pug_device._dense_cc_run)
     must produce exactly the min-label components of the gather
     formulation on random graphs, including invalid-node padding and
     sub-batched shapes."""

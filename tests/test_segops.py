@@ -94,84 +94,3 @@ def test_last_marked_matches_numpy(strict):
             val_bits=16, strict=strict,
         )
     np.testing.assert_array_equal(np.asarray(got), want)
-
-
-@pytest.mark.parametrize("n", [1, 300, 40000])
-def test_pallas_seg_sum_matches_xla(n):
-    """The single-pass Pallas scan kernels (ops/pallas_segscan.py,
-    interpret mode on CPU) must equal the XLA cumulative formulation —
-    including under an enable_x64 scope, which the production WTA
-    kernels run in."""
-    import jax
-    import jax.numpy as jnp
-
-    from alevin_fry_tpu.ops.crlike_device import _seg_sum
-    from alevin_fry_tpu.ops.pallas_segscan import seg_sum
-
-    rng = np.random.RandomState(n)
-    x = rng.randint(0, 5, n).astype(np.int32)
-    start = np.zeros(n, bool)
-    start[0] = True
-    start[rng.rand(n) < 0.15] = True
-    with jax.enable_x64(True):
-        tp, rp = seg_sum(
-            jnp.asarray(x), jnp.asarray(start), with_rank=True,
-            interpret=True,
-        )
-        tx, rx = _seg_sum(jnp.asarray(x), jnp.asarray(start), with_rank=True)
-    np.testing.assert_array_equal(np.asarray(tp), np.asarray(tx))
-    np.testing.assert_array_equal(np.asarray(rp), np.asarray(rx))
-
-
-@pytest.mark.parametrize("n", [5000, 40000])
-@pytest.mark.parametrize("strict", [False, True])
-def test_pallas_last_marked_matches_xla(strict, n):
-    """n=40000 > BLOCK exercises the cross-block SMEM carry of the lex
-    pair-scan kernel in interpret mode (previously TPU-only coverage)."""
-    import jax
-    import jax.numpy as jnp
-
-    from alevin_fry_tpu.ops.crlike_device import _last_marked
-    from alevin_fry_tpu.ops.pallas_segscan import last_marked
-
-    rng = np.random.RandomState(31 + n)
-    start, seg_id = _random_segments(rng, n)
-    grp_ord = (seg_id + 1).astype(np.int32)
-    mark = rng.rand(n) < 0.25
-    val = rng.randint(0, 1 << 15, n).astype(np.int64)
-    with jax.enable_x64(True):
-        got_p = last_marked(
-            jnp.asarray(val.astype(np.int32)), jnp.asarray(mark),
-            jnp.asarray(grp_ord), strict=strict, interpret=True,
-        )
-        want = _last_marked(
-            jnp.asarray(val), jnp.asarray(mark), jnp.asarray(grp_ord),
-            val_bits=16, strict=strict,
-        )
-    np.testing.assert_array_equal(np.asarray(got_p), np.asarray(want))
-
-
-@pytest.mark.parametrize("n", [5000, 40000])
-def test_pallas_seg_reduce_matches_xla(n):
-    """n=40000 > BLOCK covers the multi-block carry path (see above)."""
-    import jax
-    import jax.numpy as jnp
-
-    from alevin_fry_tpu.ops.crlike_device import _seg_reduce
-    from alevin_fry_tpu.ops.pallas_segscan import seg_reduce
-
-    rng = np.random.RandomState(37 + n)
-    start, seg_id = _random_segments(rng, n)
-    grp_ord = (seg_id + 1).astype(np.int32)
-    mark = rng.rand(n) < 0.3
-    val = rng.randint(0, 1 << 20, n).astype(np.int64)
-    with jax.enable_x64(True):
-        got_p = seg_reduce(
-            jnp.asarray(val.astype(np.int32)), jnp.asarray(mark),
-            jnp.asarray(start), jnp.asarray(grp_ord), interpret=True,
-        )
-        want = _seg_reduce(
-            jnp.asarray(val), jnp.asarray(mark), jnp.asarray(start),
-            jnp.asarray(grp_ord), val_bits=21,
-        )
-    np.testing.assert_array_equal(np.asarray(got_p), np.asarray(want))
